@@ -1,0 +1,253 @@
+"""Config system for repro executor architectures.
+
+Every assigned architecture gets one file in this package defining
+``CONFIG = ModelConfig(...)`` with the exact public-literature spec
+(cited in ``citation``) plus a ``reduced()`` smoke-test variant
+(<=2 layers, d_model<=512, <=4 experts) runnable on CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, replace
+from typing import Optional
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """A single executor architecture.
+
+    ``family`` selects the block stack:
+      dense  : attention + SwiGLU MLP
+      moe    : attention + mixture-of-experts MLP
+      ssm    : xLSTM (alternating mLSTM / sLSTM blocks, no attention)
+      hybrid : Mamba2 backbone with shared attention blocks interleaved
+      vlm    : dense decoder consuming text tokens + stub patch embeddings
+      audio  : encoder-decoder consuming stub frame embeddings (whisper)
+    """
+
+    arch_id: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    citation: str = ""
+
+    # attention details
+    head_dim: Optional[int] = None  # default: d_model // n_heads
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 1_000_000.0
+    sliding_window: Optional[int] = None  # tokens; None = full attention
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+
+    # SSM / hybrid
+    ssm_state: int = 0          # Mamba2 N
+    ssm_expand: int = 2         # d_inner = expand * d_model
+    ssm_head_dim: int = 64      # Mamba2 P
+    ssm_conv: int = 4           # depthwise conv width
+    attn_every: int = 6         # hybrid: one shared attn block per this many layers
+    # xLSTM: ratio of mLSTM blocks per sLSTM block (paper uses mostly mLSTM)
+    mlstm_per_slstm: int = 3
+
+    # encoder-decoder (audio)
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq: int = 1500     # whisper: 30s audio -> 1500 frames
+    activation: str = "swiglu"  # swiglu | gelu
+
+    # modality frontend stubs
+    n_image_patches: int = 0    # vlm: patch embeddings prepended to text
+
+    # misc
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+
+    # serving variant knobs (e.g. SWA variant for long-context decode on
+    # otherwise-full-attention dense archs)
+    long_context_window: Optional[int] = None
+
+    # ---- §Perf optimization knobs (beyond-paper; see EXPERIMENTS.md) ----
+    # blocked (flash-style) attention at the XLA level: q-block size
+    attention_block_q: Optional[int] = None
+    # constrain attention q/out to shard the *sequence* dim on the model
+    # axis (context parallelism): balances flops when n_heads doesn't
+    # divide the model axis
+    shard_attn_seq: bool = False
+    # store the KV cache with GQA heads expanded to this count so the
+    # model-axis shards align with the q-head groups (kills per-layer
+    # cache re-gather at decode)
+    kv_cache_expand_heads: Optional[int] = None
+    # MoE dispatch implementation: "gather" (sorted capacity dispatch,
+    # GSPMD-global) or "ep" (shard_map expert parallelism)
+    moe_impl: str = "gather"
+    # decode: thread the KV cache through the layer scan as a carry with
+    # in-place dynamic-update-slice instead of xs/ys double buffering
+    # (kills the full-cache copy per decode step)
+    carry_cache: bool = False
+
+    def __post_init__(self):
+        if self.family not in ("dense", "moe", "ssm", "hybrid", "vlm", "audio"):
+            raise ValueError(f"unknown family {self.family!r}")
+        if self.family == "moe" and (self.n_experts <= 0 or self.top_k <= 0):
+            raise ValueError("moe family requires n_experts/top_k")
+        if self.family == "audio" and not self.is_encoder_decoder:
+            raise ValueError("audio family must be encoder-decoder")
+
+    # ---- derived ------------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.resolved_head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.resolved_head_dim
+
+    @property
+    def d_inner(self) -> int:
+        """SSM inner width (Mamba2 / xLSTM up-projection)."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    def padded_vocab(self, multiple: int = 256) -> int:
+        """Vocab padded for clean model-axis sharding (whisper: 51865->51968)."""
+        return _round_up(self.vocab_size, multiple)
+
+    @property
+    def uses_attention(self) -> bool:
+        return self.family != "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """True iff decode at 524k tokens is sub-quadratic for this config."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window is not None or self.long_context_window is not None
+
+    def decode_window(self) -> Optional[int]:
+        """Effective attention window used for rolling-buffer decode caches."""
+        if self.sliding_window is not None:
+            return self.sliding_window
+        return self.long_context_window
+
+    # ---- parameter count (analytic; used by roofline MODEL_FLOPS) -----
+    def param_count(self, active_only: bool = False) -> int:
+        D, F, V = self.d_model, self.d_ff, self.vocab_size
+        emb = V * D * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            # xLSTM blocks: up/gate/down projections + gates (approximate,
+            # matches init in models/ssm.py)
+            di = self.d_inner
+            per_m = D * di * 2 + di * D + 4 * di * D // self.ssm_expand  # mLSTM
+            per_s = 4 * (D * D + (D // max(self.n_heads, 1)) * D)        # sLSTM approx
+            n_s = self.n_layers // (self.mlstm_per_slstm + 1)
+            n_m = self.n_layers - n_s
+            return emb + n_m * per_m + n_s * per_s
+        attn = D * self.q_dim + 2 * D * self.kv_dim + self.q_dim * D
+        if self.family == "hybrid":
+            di = self.d_inner
+            N, H = self.ssm_state, self.n_ssm_heads
+            per_mamba = D * (2 * di + 2 * N * 1 + H) + di * D + self.ssm_conv * di
+            n_attn = self.n_layers // self.attn_every
+            n_mamba = self.n_layers - n_attn
+            mlp = 3 * D * F
+            return emb + n_mamba * per_mamba + n_attn * (attn + mlp)
+        if self.family == "moe":
+            per_expert = 3 * D * F
+            n_e = self.top_k + self.n_shared_experts if active_only else (
+                self.n_experts + self.n_shared_experts)
+            mlp = n_e * per_expert + D * self.n_experts  # + router
+        else:
+            n_mlp = 3 if self.activation == "swiglu" else 2
+            mlp = n_mlp * D * F
+        dec = self.n_layers * (attn + mlp)
+        enc = 0
+        if self.is_encoder_decoder:
+            cross = attn  # cross-attention block per decoder layer
+            dec += self.n_layers * cross
+            enc = self.n_encoder_layers * (attn + mlp)
+        return emb + dec + enc
+
+    # ---- reduced smoke variant ----------------------------------------
+    def reduced(self) -> "ModelConfig":
+        """<=2 layers, d_model<=512, <=4 experts — CPU-runnable smoke config."""
+        d_model = min(self.d_model, 256)
+        n_heads = min(self.n_heads, 4)
+        head_dim = d_model // n_heads
+        n_kv = min(self.n_kv_heads, n_heads)
+        while n_heads % n_kv:
+            n_kv -= 1
+        kw = dict(
+            n_layers=2,
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            head_dim=head_dim,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            ssm_head_dim=min(self.ssm_head_dim, 32),
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            attn_every=2,
+            n_image_patches=min(self.n_image_patches, 16) if self.n_image_patches else 0,
+            encoder_seq=min(self.encoder_seq, 32),
+            n_encoder_layers=2 if self.is_encoder_decoder else 0,
+            sliding_window=min(self.sliding_window, 64) if self.sliding_window else None,
+            long_context_window=(min(self.long_context_window, 64)
+                                 if self.long_context_window else None),
+            mlstm_per_slstm=1,
+        )
+        if self.n_experts:
+            kw.update(n_experts=min(self.n_experts, 4), top_k=min(self.top_k, 2))
+        return replace(self, **kw)
+
+    def variant(self, **kw) -> "ModelConfig":
+        return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One of the assigned benchmark input shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: dict = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+def fields_summary(cfg: ModelConfig) -> str:
+    keep = ("arch_id", "family", "n_layers", "d_model", "n_heads", "n_kv_heads",
+            "d_ff", "vocab_size", "n_experts", "top_k", "ssm_state")
+    d = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    return ", ".join(f"{k}={d[k]}" for k in keep if d.get(k))
