@@ -319,15 +319,17 @@ def run_main_path(torch):
     tokens = edge.stats["tokens_out"] + cloud.stats["tokens_out"]
     routes = ["".join("C" if r.offload[s] else "e" for s in sorted(r.offload))
               for r in report.results]
+    ne, nc = edge.cfg.n_layers, cloud.cfg.n_layers
     print(f"main path: {report.n} queries, routes {routes}, {tokens} tokens "
           f"out (edge {edge.stats['tokens_out']}, cloud "
           f"{cloud.stats['tokens_out']}), wall {wall:.2f} s; launches "
           f"{launches} = one per layer per prefill call "
-          f"({edge.stats['prefill_calls']} edge x 28 + "
-          f"{cloud.stats['prefill_calls']} cloud x 2) and per decode tick "
-          f"({edge.stats['steps']} edge x 28 + {cloud.stats['steps']} "
-          f"cloud x 2); plain-version calls {plain}")
-    return launches
+          f"({edge.stats['prefill_calls']} edge x {ne} + "
+          f"{cloud.stats['prefill_calls']} cloud x {nc}) and per decode tick "
+          f"({edge.stats['steps']} edge x {ne} + {cloud.stats['steps']} "
+          f"cloud x {nc}); plain-version calls {plain}")
+    # checked above: every prefill call / decode tick launched once a layer
+    return launches, {"edge": ne, "cloud": nc}
 
 
 # ---------------------------------------------------------------------------
@@ -373,7 +375,7 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernels(torch, launches, errs):
+def time_kernels(torch, launches, per_step, errs):
     import torch.nn.functional as F
     from repro_torch.kernels import batched_decode_attention as BD
     from repro_torch.kernels import ragged_prefill_attention as RP
@@ -409,6 +411,7 @@ def time_kernels(torch, launches, errs):
                       "ragged_prefill_attention.cu",
             "replaces": "src/repro/kernels/ragged_prefill_attention.py:84",
             "launches": launches["ragged_prefill_attention"],
+            "launches_per_step": per_step,
             "max_abs_err": errs["ragged_prefill_attention"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bound,
             "bound_by": by, "library_ms": lib_ms,
@@ -441,6 +444,7 @@ def time_kernels(torch, launches, errs):
                       "batched_decode_attention.cu",
             "replaces": "src/repro/kernels/batched_decode_attention.py:56",
             "launches": launches["batched_decode_attention"],
+            "launches_per_step": per_step,
             "max_abs_err": errs["batched_decode_attention"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bound,
             "bound_by": by, "library_ms": lib_ms,
@@ -485,10 +489,10 @@ def main() -> None:
     check_small_model(torch)
 
     # phase 3: the main path at full width
-    launches = run_main_path(torch)
+    launches, per_step = run_main_path(torch)
 
     # phase 4: times at the serving shapes
-    kernels = time_kernels(torch, launches, errs)
+    kernels = time_kernels(torch, launches, per_step, errs)
     for k in kernels:
         require(all(isinstance(k[f], float) and math.isfinite(k[f])
                     for f in ("ms", "plain_ms", "bound_ms", "library_ms")),

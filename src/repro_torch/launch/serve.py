@@ -45,7 +45,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device of both engines and the router")
     ap.add_argument("--reduced", action="store_true",
-                    help="serve the reduced (CPU smoke) configs in float32")
+                    help="serve the reduced (CPU smoke) configs in float32, "
+                         "max_len 192 and 64-token chunks as the reference "
+                         "launcher does (full width: max_len 512, 128)")
     ap.add_argument("--queries", type=int, default=6,
                     help="closed-loop batch size (open loop: trace decides)")
     ap.add_argument("--benchmark", default="gpqa")
@@ -60,9 +62,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--no-pump", action="store_true",
                     help="synchronous per-subtask dispatch (engines never "
                          "co-batch queries)")
-    ap.add_argument("--max-len", type=int, default=512,
-                    help="KV lines per serving slot")
-    ap.add_argument("--prefill-chunk", type=int, default=128,
+    ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="prefill chunk length (long prompts never stall "
                          "co-resident decodes)")
     ap.add_argument("--no-prefix-reuse", action="store_true",
@@ -111,7 +111,8 @@ def build_engines(args) -> Tuple[ServingEngine, ServingEngine]:
         edge_cfg, cloud_cfg = edge_cfg.reduced(), cloud_cfg.reduced()
     cloud_cfg = cloud_cfg.variant(n_layers=2)
     dtype = torch.float32 if args.reduced else torch.bfloat16
-    kw = dict(max_len=args.max_len, prefill_chunk=args.prefill_chunk,
+    max_len, chunk = (192, 64) if args.reduced else (512, 128)
+    kw = dict(max_len=max_len, prefill_chunk=args.prefill_chunk or chunk,
               prefix_reuse=not args.no_prefix_reuse,
               prefix_block=args.prefix_block or KV.PREFIX_BLOCK,
               dtype=dtype, device=args.device)

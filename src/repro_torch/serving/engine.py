@@ -188,13 +188,7 @@ class ServingEngine:
         self.params = params
         self.slots = batch_slots
         self.max_len = max_len
-        self.dtype = dtype
-        self.seed = seed
         self.device = torch.device(device)
-        self._ctor_kw = dict(batch_slots=batch_slots, max_len=max_len,
-                             dtype=dtype, prefill_chunk=prefill_chunk,
-                             prefix_reuse=prefix_reuse,
-                             prefix_block=prefix_block, device=device)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.cache = M.init_cache(cfg, batch_slots, max_len, dtype=dtype,
                                   device=self.device)
@@ -223,13 +217,6 @@ class ServingEngine:
                       "prefill_backend": None, "jit_retraces": 0,
                       "prefix_hits": 0, "prefill_tokens_saved": 0,
                       "prefix_copies": 0, "prefix_seed_compiles": 0}
-
-    def clone(self, *, seed: Optional[int] = None) -> "ServingEngine":
-        """A fresh engine over the SAME config and params (no re-init)
-        with its own KV slot pool."""
-        return ServingEngine(self.cfg, self.params,
-                             seed=self.seed if seed is None else seed,
-                             **self._ctor_kw)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
@@ -309,14 +296,6 @@ class ServingEngine:
     @property
     def n_active(self) -> int:
         return sum(a is not None for a in self.active)
-
-    def prefix_match_len(self, ids) -> int:
-        """Longest block-aligned cached prefix (in tokens) this engine
-        could seed for ``ids`` right now. Read-only."""
-        if not self.prefix_reuse or not ids:
-            return 0
-        _, n = self._prefix.match(list(ids))
-        return n
 
     def cancel(self, req: Request) -> bool:
         """Withdraw a request from the queue or free its KV slot. No-op

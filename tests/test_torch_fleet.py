@@ -10,7 +10,6 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
 from repro.core import hybridflow as RH  # noqa: E402
-from repro.core import router as RR  # noqa: E402
 from repro.core import scheduler as RS  # noqa: E402
 from repro.core.profiler import train_default_router  # noqa: E402
 from repro.data.tasks import gen_benchmark as ref_gen  # noqa: E402
@@ -41,7 +40,7 @@ def _same_results(got, want, *, answers=False):
 
 @pytest.fixture(scope="module")
 def routers():
-    ref, _ = train_default_router(n_queries=60, epochs=20)
+    ref, _ = train_default_router(n_queries=40, epochs=10)
     port = TR.Router(convert_params(jax.tree.map(np.asarray, ref.params),
                                     device="cpu"), device="cpu")
     return ref, port
@@ -82,7 +81,7 @@ def test_fleet_results_equal_reference_on_analytic_executors(routers,
 
 
 def test_router_training_fits_the_profiled_utilities():
-    router, info = TP.train_default_router(n_queries=40, epochs=15,
+    router, info = TP.train_default_router(n_queries=30, epochs=10,
                                            device="cpu")
     hist = info["history"]
     assert hist[-1] < hist[0] and np.isfinite(hist).all()
