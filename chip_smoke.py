@@ -19,9 +19,10 @@ Phases, in order; any failure exits non-zero:
    qwen2-1.5b (28 layers) and cloud mistral-large-123b (published width,
    2 layers), bf16, random weights from seeds, router warm start, 6 gpqa
    queries through ``ServingRuntime`` with ``HybridFlowPolicy``; every
-   query must complete, both engines must prefill and decode, and every
-   layer of every prefill call and decode tick must have launched its
-   kernel (the plain versions never run);
+   query must complete, both engines must prefill and decode, and each
+   engine's prefill chunks and decode ticks are counted as they run: every
+   one must launch its kernel once per layer, every launch must fall in
+   one of them, and the plain versions never run;
 4. times at the serving shapes — kernel, plain version and
    ``scaled_dot_product_attention`` (a yardstick only: the port never
    calls it), beside the least time the card could take.
@@ -280,56 +281,90 @@ def run_main_path(torch):
     from repro_torch.kernels import batched_decode_attention as BD
     from repro_torch.kernels import ragged_prefill_attention as RP
     from repro_torch.launch import serve
+    from repro_torch.serving.engine import ServingEngine
+
+    def counts():
+        return (RP.ragged_prefill_attention.launches,
+                BD.batched_decode_attention.launches)
+
+    # each engine's prefill chunks and decode ticks, with the launches of
+    # both kernels that each one made: (engine id, step kind) -> deltas
+    per_call = {}
+
+    def measured(kind, launch):
+        def wrapper(self):
+            before = counts()
+            out = launch(self)
+            if out is not None:
+                per_call.setdefault((id(self), kind), []).append(
+                    tuple(a - b for a, b in zip(counts(), before)))
+            return out
+        return wrapper
 
     args = serve.parse_args(["--queries", "6", "--benchmark", "gpqa"])
-    for fn in (RP.ragged_prefill_attention, BD.batched_decode_attention):
-        fn.launches = 0
-    RP.ragged_prefill_attention_plain.calls = 0
-    BD.batched_decode_attention_plain.calls = 0
-    t0 = time.perf_counter()
-    report, edge, cloud = serve.run(args)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"ragged_prefill_attention": RP.ragged_prefill_attention
-                .launches,
-                "batched_decode_attention": BD.batched_decode_attention
-                .launches}
-    plain = (RP.ragged_prefill_attention_plain.calls,
-             BD.batched_decode_attention_plain.calls)
+    originals = (ServingEngine._prefill_launch, ServingEngine._decode_launch)
+    ServingEngine._prefill_launch = measured("prefill", originals[0])
+    ServingEngine._decode_launch = measured("decode", originals[1])
+    try:
+        for fn in (RP.ragged_prefill_attention, BD.batched_decode_attention):
+            fn.launches = 0
+        RP.ragged_prefill_attention_plain.calls = 0
+        BD.batched_decode_attention_plain.calls = 0
+        t0 = time.perf_counter()
+        report, edge, cloud = serve.run(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(zip(("ragged_prefill_attention",
+                             "batched_decode_attention"), counts()))
+        plain = (RP.ragged_prefill_attention_plain.calls,
+                 BD.batched_decode_attention_plain.calls)
+    finally:
+        ServingEngine._prefill_launch, ServingEngine._decode_launch = \
+            originals
 
     require(report.n == 6, f"{report.n} of 6 queries reported")
     require(all(r.results and len(r.results) == len(r.offload)
                 for r in report.results), "a query left subtasks unfinished")
+    # per engine and step kind, the launches of each call, as measured
+    per_step = {"ragged_prefill_attention": {},
+                "batched_decode_attention": {}}
     for name, eng in (("edge", edge), ("cloud", cloud)):
-        s = eng.stats
-        require(s["prefill_calls"] > 0 and s["steps"] > 0,
-                f"{name} engine did not both prefill and decode: {s}")
-        require(s["prefill_backend"] == "cuda-kernel", f"{name}: {s}")
-    want_prefill = sum(e.stats["prefill_calls"] * e.cfg.n_layers
-                       for e in (edge, cloud))
-    want_decode = sum(e.stats["steps"] * e.cfg.n_layers
-                      for e in (edge, cloud))
-    require(launches["ragged_prefill_attention"] == want_prefill,
-            f"ragged launches {launches} != layers x prefill calls "
-            f"{want_prefill}")
-    require(launches["batched_decode_attention"] == want_decode,
-            f"decode launches {launches} != layers x decode ticks "
-            f"{want_decode}")
+        pre = per_call.get((id(eng), "prefill"), [])
+        dec = per_call.get((id(eng), "decode"), [])
+        require(len(pre) == eng.stats["prefill_calls"] > 0
+                and len(dec) == eng.stats["steps"] > 0,
+                f"{name} engine did not both prefill and decode: "
+                f"{eng.stats}, {len(pre)} prefill / {len(dec)} decode calls")
+        pre_ragged = sorted({r for r, _ in pre})
+        dec_decode = sorted({d for _, d in dec})
+        require(pre_ragged == [eng.cfg.n_layers]
+                and all(d == 0 for _, d in pre),
+                f"{name}: ragged launches per prefill chunk {pre_ragged}, "
+                f"want one per layer ({eng.cfg.n_layers})")
+        require(dec_decode == [eng.cfg.n_layers]
+                and all(r == 0 for r, _ in dec),
+                f"{name}: decode launches per tick {dec_decode}, want one "
+                f"per layer ({eng.cfg.n_layers})")
+        per_step["ragged_prefill_attention"][name] = {
+            "per_prefill_chunk": pre_ragged[0], "prefill_chunks": len(pre)}
+        per_step["batched_decode_attention"][name] = {
+            "per_decode_tick": dec_decode[0], "decode_ticks": len(dec)}
+    # every launch of the run happened inside one of those calls
+    for i, kernel in enumerate(launches):
+        attributed = sum(c[i] for calls in per_call.values() for c in calls)
+        require(attributed == launches[kernel],
+                f"{kernel}: {launches[kernel]} launches, {attributed} inside "
+                f"engine prefill/decode calls")
     require(plain == (0, 0), f"plain versions ran on the main path: {plain}")
     tokens = edge.stats["tokens_out"] + cloud.stats["tokens_out"]
     routes = ["".join("C" if r.offload[s] else "e" for s in sorted(r.offload))
               for r in report.results]
-    ne, nc = edge.cfg.n_layers, cloud.cfg.n_layers
     print(f"main path: {report.n} queries, routes {routes}, {tokens} tokens "
           f"out (edge {edge.stats['tokens_out']}, cloud "
           f"{cloud.stats['tokens_out']}), wall {wall:.2f} s; launches "
-          f"{launches} = one per layer per prefill call "
-          f"({edge.stats['prefill_calls']} edge x {ne} + "
-          f"{cloud.stats['prefill_calls']} cloud x {nc}) and per decode tick "
-          f"({edge.stats['steps']} edge x {ne} + {cloud.stats['steps']} "
-          f"cloud x {nc}); plain-version calls {plain}")
-    # checked above: every prefill call / decode tick launched once a layer
-    return launches, {"edge": ne, "cloud": nc}
+          f"{launches}, per engine step as measured {per_step}; "
+          f"plain-version calls {plain}")
+    return launches, per_step
 
 
 # ---------------------------------------------------------------------------
@@ -411,7 +446,7 @@ def time_kernels(torch, launches, per_step, errs):
                       "ragged_prefill_attention.cu",
             "replaces": "src/repro/kernels/ragged_prefill_attention.py:84",
             "launches": launches["ragged_prefill_attention"],
-            "launches_per_step": per_step,
+            "launches_per_step": per_step["ragged_prefill_attention"],
             "max_abs_err": errs["ragged_prefill_attention"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bound,
             "bound_by": by, "library_ms": lib_ms,
@@ -444,7 +479,7 @@ def time_kernels(torch, launches, per_step, errs):
                       "batched_decode_attention.cu",
             "replaces": "src/repro/kernels/batched_decode_attention.py:56",
             "launches": launches["batched_decode_attention"],
-            "launches_per_step": per_step,
+            "launches_per_step": per_step["batched_decode_attention"],
             "max_abs_err": errs["batched_decode_attention"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bound,
             "bound_by": by, "library_ms": lib_ms,

@@ -15,9 +15,8 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 import torch
 
@@ -60,35 +59,33 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, float]:
+def build(names: Iterable[str] = tuple(SIGNATURES)) -> List[str]:
     """Compile every named kernel that is not built yet, one ``nvcc`` per
-    source, all started together. Returns seconds per compiled source;
-    raises ``RuntimeError`` with the compiler output if any build fails."""
+    source, all started together. Returns the names it compiled; raises
+    ``RuntimeError`` with the compiler output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    t0 = time.perf_counter()
     for name in names:
         out = _library_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    times, errors = {}, []
-    for name, (proc, tmp, out) in procs.items():
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    errors = []
+    for name, proc in procs.items():
         log, _ = proc.communicate()
-        times[name] = time.perf_counter() - t0
+        out = _library_path(name)
         out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu "
                           f"(exit {proc.returncode}):\n{log}")
-            continue
-        tmp.replace(out)
+        else:
+            out.with_suffix(f".{os.getpid()}.tmp").replace(out)
     if errors:
         raise RuntimeError("\n".join(errors))
-    return times
+    return list(procs)
 
 
 def load(name: str) -> ctypes.CDLL:
