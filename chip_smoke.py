@@ -5,27 +5,34 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. device and build — the card's name and power limit, then both CUDA
-   kernels compiled with nvcc for sm_90a from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, all started together);
+1. device and build — the card's name and power limit, then the three
+   CUDA kernels compiled with nvcc for sm_90a from
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, all started
+   together);
 2. kernels against their plain PyTorch versions on the card — the case
-   grids of the JAX package's kernel tests and the serving path's shapes,
-   float32 at 2e-3 and bfloat16 at 2e-2, with every dead KV line (past
-   the causal extent or kv_len, below the window) poisoned with NaN;
-   then a reduced float32 model served on the card (kernels) against the
-   same model on the CPU (plain versions): teacher-forced logits at 2e-3
-   and greedy engine outputs token for token;
-3. the main path — ``repro_torch.launch.serve`` at full width: edge
-   qwen2-1.5b (28 layers) and cloud mistral-large-123b (published width,
-   2 layers), bf16, random weights from seeds, router warm start, 6 gpqa
-   queries through ``ServingRuntime`` with ``HybridFlowPolicy``; every
-   query must complete, both engines must prefill and decode, and each
-   engine's prefill chunks and decode ticks are counted as they run: every
-   one must launch its kernel once per layer, every launch must fall in
-   one of them, and the plain versions never run;
-4. times at the serving shapes — kernel, plain version and
-   ``scaled_dot_product_attention`` (a yardstick only: the port never
-   calls it), beside the least time the card could take.
+   grids of the JAX package's kernel tests and the serving paths' shapes,
+   float32 at 2e-3 and bfloat16 at 2e-2, with every K/V line that no
+   query may read (past the causal extent or kv_len, below the window)
+   poisoned with NaN; then reduced float32 models served on the card
+   (kernels) against the same models on the CPU (plain versions): a dense
+   qwen2-1.5b through chunked prefill and a moe mixtral-8x7b through the
+   batch-1 prefill, teacher-forced logits and cache at 2e-3 and greedy
+   engine outputs token for token;
+3. the main paths — ``repro_torch.launch.serve`` at full width, bf16,
+   random weights from seeds, router warm start, 6 gpqa queries through
+   ``ServingRuntime`` with ``HybridFlowPolicy``, twice: the paper's pair
+   (edge qwen2-1.5b, 28 layers; cloud mistral-large-123b at published
+   width, 2 layers) and the model-pair swap (edge internlm2-1.8b, 24
+   layers; cloud mixtral-8x7b at published width, 2 layers, whose moe
+   prefills each request alone through the flash-attention kernel). Each
+   run starts with every launch count at 0. Every query must complete;
+   each engine's prefill chunks, batch-1 prefills and decode ticks are
+   counted as they run: every one must launch its kernel once per layer,
+   every launch must fall in one of them, and the plain versions never
+   run;
+4. times at the serving shapes — kernel, plain version and one PyTorch
+   library call (``scaled_dot_product_attention``, a yardstick only: the
+   port never calls it), beside the least time the card could take.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -65,13 +72,47 @@ BATCHED_DECODE_CASES = [
     (2, 64, 4, 2, 32, 16),
     (3, 100, 6, 1, 32, 48),
 ]
-# the serving path's shapes: prefill chunks of 128 over up to 512 pooled
-# lines, decode over 512-line slots; edge qwen2-1.5b (12 query heads over 2
-# KV heads) and cloud mistral-large-123b (96 over 8), head dim 128
-MAIN_RAGGED = {"edge": (2, 128, 512, 12, 2, 128, None),
-               "cloud": (4, 128, 512, 96, 8, 128, None)}
-MAIN_DECODE = {"edge": (2, 512, 12, 2, 128, None),
-               "cloud": (4, 512, 96, 8, 128, None)}
+FLASH_CASES = [
+    # (B, Sq, Sk, H, KV, hd, causal, window, q_offset) — the grid of
+    # tests/test_kernels.py (q_offset = Sk - Sq when causal) ...
+    (2, 64, 64, 4, 2, 32, True, None, 0),
+    (1, 128, 128, 8, 8, 64, True, None, 0),
+    (2, 96, 96, 4, 1, 32, True, 32, 0),
+    (1, 37, 80, 2, 2, 16, False, None, 0),
+    (1, 200, 200, 2, 1, 128, True, 64, 0),
+    # ... and offsets that leave lines past the last row's causal extent
+    # and below the first row's window (poisoned), or rows with no key
+    (1, 24, 90, 4, 2, 32, True, 16, 40),
+    (2, 1, 50, 8, 2, 16, True, None, 20),
+    (1, 64, 200, 12, 1, 128, True, 32, 80),
+    (1, 12, 12, 4, 2, 16, True, None, -5),
+]
+# the serving paths' shapes: prefill chunks of 128 over up to 512 pooled
+# lines, decode over 512-line slots, head dim 128. Paper pair: edge
+# qwen2-1.5b (12 query heads over 2 KV heads), cloud mistral-large-123b
+# (96 over 8). Swap pair: edge internlm2-1.8b (16 over 8), cloud
+# mixtral-8x7b (32 over 8, window 4096), whose batch-1 prefill runs the
+# flash kernel on one whole prompt
+MAIN_RAGGED = {"paper edge": (2, 128, 512, 12, 2, 128, None),
+               "paper cloud": (4, 128, 512, 96, 8, 128, None),
+               "swap edge": (2, 128, 512, 16, 8, 128, None)}
+MAIN_DECODE = {"paper edge": (2, 512, 12, 2, 128, None),
+               "paper cloud": (4, 512, 96, 8, 128, None),
+               "swap edge": (2, 512, 16, 8, 128, None),
+               "swap cloud": (4, 512, 32, 8, 128, None)}
+MAIN_FLASH = {f"swap cloud S={n}": (1, n, n, 32, 8, 128, True, 4096, 0)
+              for n in (1, 37, 128, 384)}
+# the shape of each kernel's row in the kernels line
+KERNEL_ROW = {"ragged_prefill_attention": "paper cloud",
+              "batched_decode_attention": "paper cloud",
+              "flash_attention": "swap cloud S=384"}
+SOURCES = {name: (f"src/repro_torch/kernels/csrc/{name}.cu", replaces)
+           for name, replaces in (
+               ("ragged_prefill_attention",
+                "src/repro/kernels/ragged_prefill_attention.py:84"),
+               ("batched_decode_attention",
+                "src/repro/kernels/batched_decode_attention.py:56"),
+               ("flash_attention", "src/repro/kernels/flash_attention.py:30"))}
 
 
 def fail(msg: str) -> None:
@@ -144,6 +185,31 @@ def poison_decode(torch, k, v, kv_len, window):
     return k, v
 
 
+def flash_inputs(torch, case, dtype, gen):
+    B, Sq, Sk, H, KV, hd = case[:6]
+    dev = "cuda"
+    return (torch.randn(B, Sq, H, hd, generator=gen, device=dev).to(dtype),
+            torch.randn(B, Sk, KV, hd, generator=gen, device=dev).to(dtype),
+            torch.randn(B, Sk, KV, hd, generator=gen, device=dev).to(dtype))
+
+
+def flash_extent(case):
+    """The K lines [lo, hi) that some query row may read."""
+    B, Sq, Sk, H, KV, hd, causal, window, off = case
+    lo = max(0, off - window + 1) if window else 0
+    hi = max(0, min(Sk, Sq - 1 + off + 1)) if causal else Sk
+    return lo, hi
+
+
+def poison_flash(k, v, case):
+    lo, hi = flash_extent(case)
+    k, v = k.clone(), v.clone()
+    for t in (k, v):
+        t[:, :lo] = float("nan")
+        t[:, hi:] = float("nan")
+    return k, v
+
+
 def max_err(torch, got, want, tol, what):
     """Max abs error; raises if ``got`` is not finite or not within
     ``tol`` (absolute plus relative, as numpy's allclose)."""
@@ -157,9 +223,11 @@ def max_err(torch, got, want, tol, what):
 
 def check_kernels(torch):
     from repro_torch.kernels import batched_decode_attention as BD
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ragged_prefill_attention as RP
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = {"ragged_prefill_attention": 0.0, "batched_decode_attention": 0.0}
+    errs = {"ragged_prefill_attention": 0.0, "batched_decode_attention": 0.0,
+            "flash_attention": 0.0}
     n = 0
     for dname, tol in TOL.items():
         dtype = getattr(torch, dname)
@@ -203,6 +271,23 @@ def check_kernels(torch):
                 if case in MAIN_DECODE.values() and dname == "bfloat16":
                     errs["batched_decode_attention"] = max(
                         errs["batched_decode_attention"], e)
+        for case in FLASH_CASES + list(MAIN_FLASH.values()):
+            causal, window, off = case[6:]
+            kw = dict(causal=causal, window=window, q_offset=off)
+            q, k, v = flash_inputs(torch, case, dtype, gen)
+            want = FA.flash_attention_plain(q, k, v, **kw)
+            kp, vp = poison_flash(k, v, case)
+            for kk, vv, tag in ((k, v, "clean"), (kp, vp, "NaN-poisoned")):
+                got = FA.flash_attention(q, kk, vv, **kw)
+                torch.cuda.synchronize()
+                e = max_err(torch, got, want, tol,
+                            f"flash {case} {dname} {tag}")
+                if causal and off < 0:       # rows with no key: zeros
+                    require(bool((got[:, :-off] == 0).all()),
+                            f"flash {case}: keyless rows are not zeros")
+                n += 1
+                if case in MAIN_FLASH.values() and dname == "bfloat16":
+                    errs["flash_attention"] = max(errs["flash_attention"], e)
     print(f"kernels vs plain versions: {n} comparisons passed "
           f"(main-path bf16 max abs err {errs})")
     return errs
@@ -267,6 +352,59 @@ def check_small_model(torch):
           f"{err:.3g}, greedy outputs identical ({outs['cuda']})")
 
 
+def check_small_moe(torch):
+    """A reduced float32 mixtral on the card (flash, decode kernels) against
+    the same model on the CPU: the batch-1 prefill of a prompt past the
+    64-token window (last logits, every cache line), teacher-forced
+    decode, and greedy engine outputs on the legacy path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("mixtral-8x7b").reduced()
+    gpu = M.init_params(cfg, seed=1, dtype=torch.float32, device="cuda")
+    params = {"cuda": gpu, "cpu": _to(gpu, "cpu")}
+    caches = {d: M.init_cache(cfg, 1, 96, dtype=torch.float32, device=d)
+              for d in ("cuda", "cpu")}
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(4, cfg.vocab_size, (1, 83), generator=gen)
+    err = 0.0
+    with torch.no_grad():
+        out = {d: M.serve_prefill(params[d], cfg,
+                                  {"tokens": tokens[:, :80].to(d)},
+                                  caches[d])[0] for d in ("cuda", "cpu")}
+        err = max(err, max_err(torch, out["cuda"].cpu(), out["cpu"], 2e-3,
+                               "reduced moe prefill logits"))
+        for t in range(80, 83):
+            for d in ("cuda", "cpu"):
+                out[d], _ = M.serve_decode(
+                    params[d], cfg, tokens[:, t:t + 1].to(d),
+                    torch.tensor([t], dtype=torch.int32, device=d),
+                    caches[d])
+            err = max(err, max_err(torch, out["cuda"].cpu(), out["cpu"],
+                                   2e-3, "reduced moe decode logits"))
+        for key in ("k", "v"):
+            err = max(err, max_err(torch, caches["cuda"][key].cpu(),
+                                   caches["cpu"][key], 2e-3,
+                                   "reduced moe cache"))
+    prompts = ["You are a careful assistant. Always reason step by step. "
+               + t for t in ("part one", "part two", "the third part")]
+    outs = {}
+    for d in ("cuda", "cpu"):
+        eng = ServingEngine(cfg, params[d], batch_slots=2, max_len=96,
+                            device=d)
+        reqs = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        eng.run_until_done()
+        require(eng.stats["prefill_backend"] == "legacy-batch1",
+                f"reduced moe engine prefilled through "
+                f"{eng.stats['prefill_backend']}")
+        outs[d] = [r.output_ids for r in reqs]
+    require(outs["cuda"] == outs["cpu"],
+            f"reduced moe greedy outputs differ: {outs}")
+    print(f"reduced mixtral-8x7b f32, card vs CPU: logits/cache max abs err "
+          f"{err:.3g}, greedy outputs identical ({outs['cuda']})")
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -277,93 +415,114 @@ def _to(tree, device):
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def run_main_path(torch):
+KERNELS = ("ragged_prefill_attention", "batched_decode_attention",
+           "flash_attention")
+# the engine step each kernel serves: ServingEngine method -> kernel
+STEP_KERNEL = {"_prefill_launch": "ragged_prefill_attention",
+               "_decode_launch": "batched_decode_attention",
+               "_prefill_slot_legacy": "flash_attention"}
+
+
+def run_main_path(torch, pair, argv):
+    """Serve 6 queries through the launcher with every launch count at 0;
+    check and return each kernel's launches and its launches per engine
+    step, as measured around each step."""
+    import gc
     from repro_torch.kernels import batched_decode_attention as BD
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ragged_prefill_attention as RP
     from repro_torch.launch import serve
     from repro_torch.serving.engine import ServingEngine
 
-    def counts():
-        return (RP.ragged_prefill_attention.launches,
-                BD.batched_decode_attention.launches)
+    wrappers = (RP.ragged_prefill_attention, BD.batched_decode_attention,
+                FA.flash_attention)
+    plains = (RP.ragged_prefill_attention_plain,
+              BD.batched_decode_attention_plain, FA.flash_attention_plain)
 
-    # each engine's prefill chunks and decode ticks, with the launches of
-    # both kernels that each one made: (engine id, step kind) -> deltas
+    def counts():
+        return tuple(fn.launches for fn in wrappers)
+
+    # (engine id, step method) -> the launch deltas of each of its calls
     per_call = {}
 
-    def measured(kind, launch):
-        def wrapper(self):
+    def measured(method, step):
+        def wrapper(self, *a):
             before = counts()
-            out = launch(self)
-            if out is not None:
-                per_call.setdefault((id(self), kind), []).append(
-                    tuple(a - b for a, b in zip(counts(), before)))
+            out = step(self, *a)
+            if method == "_prefill_slot_legacy" or out is not None:
+                per_call.setdefault((id(self), method), []).append(
+                    tuple(x - y for x, y in zip(counts(), before)))
             return out
         return wrapper
 
-    args = serve.parse_args(["--queries", "6", "--benchmark", "gpqa"])
-    originals = (ServingEngine._prefill_launch, ServingEngine._decode_launch)
-    ServingEngine._prefill_launch = measured("prefill", originals[0])
-    ServingEngine._decode_launch = measured("decode", originals[1])
+    args = serve.parse_args(["--queries", "6", "--benchmark", "gpqa", *argv])
+    originals = {m: getattr(ServingEngine, m) for m in STEP_KERNEL}
+    for m, fn in originals.items():
+        setattr(ServingEngine, m, measured(m, fn))
     try:
-        for fn in (RP.ragged_prefill_attention, BD.batched_decode_attention):
+        for fn in wrappers:
             fn.launches = 0
-        RP.ragged_prefill_attention_plain.calls = 0
-        BD.batched_decode_attention_plain.calls = 0
+        for fn in plains:
+            fn.calls = 0
         t0 = time.perf_counter()
         report, edge, cloud = serve.run(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(zip(("ragged_prefill_attention",
-                             "batched_decode_attention"), counts()))
-        plain = (RP.ragged_prefill_attention_plain.calls,
-                 BD.batched_decode_attention_plain.calls)
+        launches = dict(zip(KERNELS, counts()))
+        plain = tuple(fn.calls for fn in plains)
     finally:
-        ServingEngine._prefill_launch, ServingEngine._decode_launch = \
-            originals
+        for m, fn in originals.items():
+            setattr(ServingEngine, m, fn)
 
-    require(report.n == 6, f"{report.n} of 6 queries reported")
+    require(report.n == 6, f"{pair}: {report.n} of 6 queries reported")
     require(all(r.results and len(r.results) == len(r.offload)
-                for r in report.results), "a query left subtasks unfinished")
-    # per engine and step kind, the launches of each call, as measured
-    per_step = {"ragged_prefill_attention": {},
-                "batched_decode_attention": {}}
+                for r in report.results),
+            f"{pair}: a query left subtasks unfinished")
+    per_step = {k: {} for k in KERNELS}
     for name, eng in (("edge", edge), ("cloud", cloud)):
-        pre = per_call.get((id(eng), "prefill"), [])
-        dec = per_call.get((id(eng), "decode"), [])
-        require(len(pre) == eng.stats["prefill_calls"] > 0
-                and len(dec) == eng.stats["steps"] > 0,
-                f"{name} engine did not both prefill and decode: "
-                f"{eng.stats}, {len(pre)} prefill / {len(dec)} decode calls")
-        pre_ragged = sorted({r for r, _ in pre})
-        dec_decode = sorted({d for _, d in dec})
-        require(pre_ragged == [eng.cfg.n_layers]
-                and all(d == 0 for _, d in pre),
-                f"{name}: ragged launches per prefill chunk {pre_ragged}, "
-                f"want one per layer ({eng.cfg.n_layers})")
-        require(dec_decode == [eng.cfg.n_layers]
-                and all(r == 0 for r, _ in dec),
-                f"{name}: decode launches per tick {dec_decode}, want one "
-                f"per layer ({eng.cfg.n_layers})")
-        per_step["ragged_prefill_attention"][name] = {
-            "per_prefill_chunk": pre_ragged[0], "prefill_chunks": len(pre)}
-        per_step["batched_decode_attention"][name] = {
-            "per_decode_tick": dec_decode[0], "decode_ticks": len(dec)}
+        L = eng.cfg.n_layers
+        calls = {m: per_call.get((id(eng), m), []) for m in STEP_KERNEL}
+        prefill = ("_prefill_launch" if eng.batched_prefill
+                   else "_prefill_slot_legacy")
+        other = ("_prefill_slot_legacy" if eng.batched_prefill
+                 else "_prefill_launch")
+        n_prefill = (eng.stats["prefill_calls"] if eng.batched_prefill
+                     else eng.stats["requests"])
+        require(len(calls[prefill]) == n_prefill > 0
+                and not calls[other]
+                and len(calls["_decode_launch"]) == eng.stats["steps"] > 0,
+                f"{pair} {name} engine did not both prefill ({prefill}) and "
+                f"decode: {eng.stats}, "
+                f"{ {m: len(c) for m, c in calls.items()} } calls")
+        for m in (prefill, "_decode_launch"):
+            kernel = STEP_KERNEL[m]
+            i = KERNELS.index(kernel)
+            seen = sorted({c[i] for c in calls[m]})
+            require(seen == [L] and all(x == 0 for c in calls[m]
+                                        for j, x in enumerate(c) if j != i),
+                    f"{pair} {name}: {kernel} launches per {m} call {seen}, "
+                    f"want one per layer ({L}) and no other kernel")
+            per_step[kernel][name] = {"per_call": L, "calls": len(calls[m]),
+                                      "step": m.strip("_")}
     # every launch of the run happened inside one of those calls
-    for i, kernel in enumerate(launches):
-        attributed = sum(c[i] for calls in per_call.values() for c in calls)
+    for i, kernel in enumerate(KERNELS):
+        attributed = sum(c[i] for cs in per_call.values() for c in cs)
         require(attributed == launches[kernel],
-                f"{kernel}: {launches[kernel]} launches, {attributed} inside "
-                f"engine prefill/decode calls")
-    require(plain == (0, 0), f"plain versions ran on the main path: {plain}")
+                f"{pair}: {kernel}: {launches[kernel]} launches, "
+                f"{attributed} inside engine steps")
+    require(plain == (0, 0, 0),
+            f"{pair}: plain versions ran on the main path: {plain}")
     tokens = edge.stats["tokens_out"] + cloud.stats["tokens_out"]
     routes = ["".join("C" if r.offload[s] else "e" for s in sorted(r.offload))
               for r in report.results]
-    print(f"main path: {report.n} queries, routes {routes}, {tokens} tokens "
-          f"out (edge {edge.stats['tokens_out']}, cloud "
-          f"{cloud.stats['tokens_out']}), wall {wall:.2f} s; launches "
-          f"{launches}, per engine step as measured {per_step}; "
-          f"plain-version calls {plain}")
+    print(f"main path [{pair}: {edge.cfg.arch_id} + {cloud.cfg.arch_id}]: "
+          f"{report.n} queries, routes {routes}, {tokens} tokens out (edge "
+          f"{edge.stats['tokens_out']}, cloud {cloud.stats['tokens_out']}), "
+          f"wall {wall:.2f} s; launches {launches}, per engine step as "
+          f"measured {per_step}; plain-version calls {plain}")
+    del report, edge, cloud
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches, per_step
 
 
@@ -404,6 +563,21 @@ def decode_work(kv_len, H, KV, hd, elem):
     return nbytes, 4 * hd * H * lines
 
 
+def flash_work(case, elem):
+    """Bytes and flops of one flash call: q in, out, and the K/V lines some
+    row may read once; 4*hd flops per admitted (query head, key) pair."""
+    B, Sq, Sk, H, KV, hd, causal, window, off = case
+    lo, hi = flash_extent(case)
+    pairs = 0
+    for i in range(Sq):
+        qpos = i + off
+        r_lo = max(0, qpos - window + 1) if window else 0
+        r_hi = max(0, min(Sk, qpos + 1)) if causal else Sk
+        pairs += max(0, r_hi - r_lo)
+    nbytes = (2 * B * Sq * H * hd + 2 * B * max(0, hi - lo) * KV * hd) * elem
+    return nbytes, 4 * hd * H * B * pairs
+
+
 def bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
@@ -411,87 +585,108 @@ def bound(nbytes, flops):
 
 
 def time_kernels(torch, launches, per_step, errs):
+    """Time each kernel, its plain version and SDPA at every serving shape;
+    return the kernels line's rows (one per kernel, at KERNEL_ROW)."""
     import torch.nn.functional as F
     from repro_torch.kernels import batched_decode_attention as BD
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ragged_prefill_attention as RP
     gen = torch.Generator(device="cuda").manual_seed(1)
     dt = torch.bfloat16
-    n_sets = 8                       # 8 x 8 MB of K/V: more than the L2
-    rows = []
-    for engine in ("edge", "cloud"):
-        case = MAIN_RAGGED[engine]
+    n_sets = 8                 # 8 input sets of MBs each: more than the L2
+    dev = "cuda"
+
+    def bhsd(t):               # SDPA's [B, H, S, hd] layout
+        return t.transpose(1, 2).contiguous()
+
+    timed = []                 # (kernel, shape name, row)
+    for shape, case in MAIN_RAGGED.items():
         G, S, W, H, KV, hd, _ = case
         sets = [ragged_inputs(torch, case, dt, gen, full_rows=True)
                 for _ in range(n_sets)]
         lib_sets = []
         for q, k, v, pos0, take in sets:
-            qpos = pos0[:, None] + torch.arange(S, device="cuda")
-            mask = torch.arange(W, device="cuda")[None, None] <= qpos[..., None]
-            lib_sets.append((q.transpose(1, 2).contiguous(),
-                             k.transpose(1, 2).contiguous(),
-                             v.transpose(1, 2).contiguous(), mask[:, None]))
+            qpos = pos0[:, None] + torch.arange(S, device=dev)
+            mask = torch.arange(W, device=dev)[None, None] <= qpos[..., None]
+            lib_sets.append((bhsd(q), bhsd(k), bhsd(v), mask[:, None]))
         pos0_l, take_l = sets[0][3].tolist(), sets[0][4].tolist()
-        nbytes, flops = ragged_work(pos0_l, take_l, S, H, KV, hd, 2)
-        t_bound, by = bound(nbytes, flops)
-        ms = time_ms(torch, lambda i: RP.ragged_prefill_attention(*sets[i]),
-                     n_sets)
-        plain_ms = time_ms(torch, lambda i: RP.ragged_prefill_attention_plain(
-            *sets[i]), n_sets, iters=5)
-        lib_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-            lib_sets[i][0], lib_sets[i][1], lib_sets[i][2],
-            attn_mask=lib_sets[i][3], enable_gqa=True), n_sets)
-        rows.append((engine, {
-            "name": "ragged_prefill_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/"
-                      "ragged_prefill_attention.cu",
-            "replaces": "src/repro/kernels/ragged_prefill_attention.py:84",
-            "launches": launches["ragged_prefill_attention"],
-            "launches_per_step": per_step["ragged_prefill_attention"],
-            "max_abs_err": errs["ragged_prefill_attention"],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bound,
-            "bound_by": by, "library_ms": lib_ms,
-            "shape": f"{engine} G={G} S={S} W={W} H={H} KV={KV} hd={hd} "
-                     f"pos0={pos0_l} take={take_l} bf16"}))
-
-        case = MAIN_DECODE[engine]
+        row = {"ms": time_ms(torch, lambda i: RP.ragged_prefill_attention(
+                   *sets[i]), n_sets),
+               "plain_ms": time_ms(torch, lambda i: RP.
+                                   ragged_prefill_attention_plain(*sets[i]),
+                                   n_sets, iters=5),
+               "library_ms": time_ms(torch, lambda i: F.
+                                     scaled_dot_product_attention(
+                                         *lib_sets[i][:3],
+                                         attn_mask=lib_sets[i][3],
+                                         enable_gqa=True), n_sets),
+               "work": ragged_work(pos0_l, take_l, S, H, KV, hd, 2),
+               "shape": f"{shape} G={G} S={S} W={W} H={H} KV={KV} hd={hd} "
+                        f"pos0={pos0_l} take={take_l} bf16"}
+        timed.append(("ragged_prefill_attention", shape, row))
+    for shape, case in MAIN_DECODE.items():
         B, M, H, KV, hd, _ = case
         kv_len = torch.tensor([(M - 1) * (b + 1) // B for b in range(B)],
-                              dtype=torch.int32, device="cuda")
+                              dtype=torch.int32, device=dev)
         sets = [decode_inputs(torch, case, dt, gen, kv_len=kv_len)
                 for _ in range(n_sets)]
-        mask = (torch.arange(M, device="cuda")[None] < kv_len[:, None])
-        lib_sets = [(q.transpose(1, 2).contiguous(),
-                     k.transpose(1, 2).contiguous(),
-                     v.transpose(1, 2).contiguous(), mask[:, None, None])
+        mask = torch.arange(M, device=dev)[None] < kv_len[:, None]
+        lib_sets = [(bhsd(q), bhsd(k), bhsd(v), mask[:, None, None])
                     for q, k, v, _ in sets]
-        nbytes, flops = decode_work(kv_len.tolist(), H, KV, hd, 2)
-        t_bound, by = bound(nbytes, flops)
-        ms = time_ms(torch, lambda i: BD.batched_decode_attention(*sets[i]),
-                     n_sets)
-        plain_ms = time_ms(torch, lambda i: BD.batched_decode_attention_plain(
-            *sets[i]), n_sets, iters=10)
-        lib_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-            lib_sets[i][0], lib_sets[i][1], lib_sets[i][2],
-            attn_mask=lib_sets[i][3], enable_gqa=True), n_sets)
-        rows.append((engine, {
-            "name": "batched_decode_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/"
-                      "batched_decode_attention.cu",
-            "replaces": "src/repro/kernels/batched_decode_attention.py:56",
-            "launches": launches["batched_decode_attention"],
-            "launches_per_step": per_step["batched_decode_attention"],
-            "max_abs_err": errs["batched_decode_attention"],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bound,
-            "bound_by": by, "library_ms": lib_ms,
-            "shape": f"{engine} B={B} M={M} H={H} KV={KV} hd={hd} "
-                     f"kv_len={kv_len.tolist()} bf16"}))
-    for engine, row in rows:
-        print(f"timing {row['name']} [{row['shape']}]: kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
-              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']})")
-    # the kernels line carries the cloud engine's shapes (GQA group of 12)
-    return [row for engine, row in rows if engine == "cloud"]
+        row = {"ms": time_ms(torch, lambda i: BD.batched_decode_attention(
+                   *sets[i]), n_sets),
+               "plain_ms": time_ms(torch, lambda i: BD.
+                                   batched_decode_attention_plain(*sets[i]),
+                                   n_sets, iters=10),
+               "library_ms": time_ms(torch, lambda i: F.
+                                     scaled_dot_product_attention(
+                                         *lib_sets[i][:3],
+                                         attn_mask=lib_sets[i][3],
+                                         enable_gqa=True), n_sets),
+               "work": decode_work(kv_len.tolist(), H, KV, hd, 2),
+               "shape": f"{shape} B={B} M={M} H={H} KV={KV} hd={hd} "
+                        f"kv_len={kv_len.tolist()} bf16"}
+        timed.append(("batched_decode_attention", shape, row))
+    for shape in ("swap cloud S=128", "swap cloud S=384"):
+        case = MAIN_FLASH[shape]
+        B, Sq, Sk, H, KV, hd, causal, window, off = case
+        kw = dict(causal=causal, window=window, q_offset=off)
+        sets = [flash_inputs(torch, case, dt, gen) for _ in range(n_sets)]
+        lib_sets = [tuple(bhsd(t) for t in s) for s in sets]
+        # window 4096 > S: SDPA's causal mask is the same function
+        row = {"ms": time_ms(torch, lambda i: FA.flash_attention(
+                   *sets[i], **kw), n_sets),
+               "plain_ms": time_ms(torch, lambda i: FA.flash_attention_plain(
+                   *sets[i], **kw), n_sets, iters=10),
+               "library_ms": time_ms(torch, lambda i: F.
+                                     scaled_dot_product_attention(
+                                         *lib_sets[i], is_causal=True,
+                                         enable_gqa=True), n_sets),
+               "work": flash_work(case, 2),
+               "shape": f"{shape} B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} "
+                        f"hd={hd} causal window={window} bf16"}
+        timed.append(("flash_attention", shape, row))
+
+    rows = []
+    for kernel, shape, row in timed:
+        t_bound, by = bound(*row.pop("work"))
+        row.update(bound_ms=t_bound, bound_by=by)
+        print(f"timing {kernel} [{row['shape']}]: kernel {row['ms']:.4f} ms, "
+              f"plain {row['plain_ms']:.4f} ms, sdpa "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+              f"({by})")
+        if KERNEL_ROW[kernel] == shape:
+            source, replaces = SOURCES[kernel]
+            rows.append({
+                "name": kernel, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(run[kernel] for run in launches.values()),
+                "launches_per_run": {p: run[kernel]
+                                     for p, run in launches.items()},
+                "launches_per_step": {p: run[kernel]
+                                      for p, run in per_step.items()},
+                "max_abs_err": errs[kernel], **row})
+    return rows
 
 
 def main() -> None:
@@ -519,12 +714,17 @@ def main() -> None:
     print(f"build: {len(built)} kernels compiled in "
           f"{time.perf_counter() - t0:.1f} s {built}")
 
-    # phase 2: kernels against their plain versions, small model vs CPU
+    # phase 2: kernels against their plain versions, small models vs CPU
     errs = check_kernels(torch)
     check_small_model(torch)
+    check_small_moe(torch)
 
-    # phase 3: the main path at full width
-    launches, per_step = run_main_path(torch)
+    # phase 3: the main paths at full width, each from launch counts of 0
+    launches, per_step = {}, {}
+    for pair, argv in (("paper pair", []),
+                       ("swap pair", ["--edge-arch", "internlm2-1.8b",
+                                      "--cloud-arch", "mixtral-8x7b"])):
+        launches[pair], per_step[pair] = run_main_path(torch, pair, argv)
 
     # phase 4: times at the serving shapes
     kernels = time_kernels(torch, launches, per_step, errs)

@@ -25,12 +25,20 @@ def to_tensor(a, *, dtype: Optional[torch.dtype] = None,
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+# subtrees the reference keeps in float32 whatever the model dtype (the
+# moe router: ``repro.models.moe.init_moe``)
+FLOAT32_KEYS = ("router",)
+
+
 def convert_params(tree, *, dtype: Optional[torch.dtype] = None,
                    device: str = "cuda"):
     """Nested dict of arrays -> the same nested dict of tensors on
-    ``device`` (cast to ``dtype`` when given). Serves model and router
+    ``device``, cast to ``dtype`` when given, except the subtrees named in
+    :data:`FLOAT32_KEYS`, which stay float32. Serves model and router
     parameters alike."""
     if isinstance(tree, dict):
-        return {k: convert_params(v, dtype=dtype, device=device)
+        return {k: convert_params(
+                    v, dtype=torch.float32 if k in FLOAT32_KEYS and dtype
+                    else dtype, device=device)
                 for k, v in tree.items()}
     return to_tensor(tree, dtype=dtype, device=device)

@@ -5,7 +5,9 @@ Ported from the Pallas TPU kernels of ``repro.kernels``:
 * ``ragged_prefill_attention`` — batched ragged chunked-prefill attention
   (every prefill chunk of the serving engine);
 * ``batched_decode_attention`` — one decode token per slot over the
-  slot-pooled cache (every decode tick).
+  slot-pooled cache (every decode tick);
+* ``flash_attention`` — full-sequence attention with a static query
+  offset (every layer of the engine's batch-1 legacy prefill).
 
 Contract of every kernel module: the public wrapper launches the CUDA
 kernel for CUDA tensors and raises if it cannot (build failure, bad

@@ -36,6 +36,8 @@ SIGNATURES = {
         (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "batched_decode_attention":
         (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "flash_attention":
+        (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

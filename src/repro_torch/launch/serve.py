@@ -2,10 +2,13 @@
 PyTorch serving engines on the card, driven by the concurrent multi-query
 runtime (counterpart of ``repro.launch.serve``).
 
-The edge engine runs ``qwen2-1.5b`` and the cloud engine
-``mistral-large-123b`` (the paper's executor pair) at their published
-widths in bf16, the cloud cut to 2 layers as the reference launcher cuts
-it; weights are random, drawn from a seed. Queries are admitted together
+By default the edge engine runs ``qwen2-1.5b`` and the cloud engine
+``mistral-large-123b`` (the paper's executor pair); ``--edge-arch
+internlm2-1.8b --cloud-arch mixtral-8x7b`` serves the paper's model-pair
+swap (App. D.2), whose moe cloud prefills each request alone through the
+engine's batch-1 legacy path. Both run at their published widths in
+bf16, the cloud cut to 2 layers as the reference launcher cuts it;
+weights are random, drawn from a seed. Queries are admitted together
 into ``ServingRuntime``; their ready subtasks share each engine's KV
 slots through the fleet scheduler's pump loop. ``--reduced`` serves the
 small CPU smoke configs in float32 instead (with ``--device cpu``).
@@ -14,6 +17,8 @@ The flags mirror the reference launcher where their machinery is ported;
 the replicated cloud pool, autoscaling and fault injection are not yet.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --queries 6
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --edge-arch internlm2-1.8b --cloud-arch mixtral-8x7b
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 """
 from __future__ import annotations

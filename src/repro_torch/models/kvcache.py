@@ -22,6 +22,16 @@ import torch
 PREFIX_BLOCK = 16
 
 
+def cache_len(cfg, shape_seq: int) -> int:
+    """Cache lines for a ``shape_seq``-token context: the decode window
+    (a rolling buffer) when the config has one, else the context plus a
+    margin of 8 lines."""
+    w = cfg.decode_window()
+    if w is not None:
+        return w
+    return shape_seq + 8
+
+
 def stored_kv_heads(cfg) -> int:
     return cfg.kv_cache_expand_heads or cfg.n_kv_heads
 
@@ -41,6 +51,30 @@ def init_attn_cache(cfg, batch: int, max_len: int, n_layers: int,
     shape = (n_layers, batch, max_len, stored_kv_heads(cfg), hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def write_prefill(cache_k, cache_v, k, v, window: Optional[int]):
+    """Single-layer prefill write, in place. cache [B,M,KV,hd]; k/v
+    [B,S,KV,hd] land on lines [0, S).
+
+    A rolling buffer stores position p at line p % M: a windowed prompt
+    longer than the buffer keeps its last M tokens, rolled by
+    ``(S - M) % M`` into those lines, so later decode writes evict the
+    oldest entry."""
+    M = cache_k.shape[1]
+    S = k.shape[1]
+    if window is not None and S > M:
+        k, v = k[:, -M:], v[:, -M:]
+        shift = (S - M) % M
+        if shift:
+            k = torch.roll(k, shift, dims=1)
+            v = torch.roll(v, shift, dims=1)
+        S = M
+    if S > M:
+        raise ValueError(f"prompt of {S} tokens exceeds cache lines {M}")
+    cache_k[:, :S] = k
+    cache_v[:, :S] = v
+    return cache_k, cache_v
 
 
 def write_chunk(cache_k, cache_v, k, v, slot_idx, pos0, take):

@@ -3,11 +3,11 @@
 Parameters are nested dicts of tensors with the reference layout
 (``dense`` computes ``x @ w`` with ``w`` as ``[d_in, d_out]``). Attention on
 the serving path goes through :func:`_dispatch_attention`, which hands
-the ragged-prefill and batched-decode shapes to the kernel wrappers of
-``repro_torch.kernels``: a CUDA tensor launches the hand-written kernel,
-a CPU tensor runs its plain version. :func:`attention` and
-:func:`ragged_prefill_attention` are the plain twins of the reference's
-jnp path, kept as references for the tests.
+the ragged-prefill, batched-decode and full-sequence shapes to the
+kernel wrappers of ``repro_torch.kernels``: a CUDA tensor launches the
+hand-written kernel, a CPU tensor runs its plain version.
+:func:`attention` and :func:`ragged_prefill_attention` are the plain
+twins of the reference's jnp path, kept as references for the tests.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.batched_decode_attention import (
     batched_decode_attention)
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ragged_prefill_attention import (
     ragged_prefill_attention as ragged_prefill_kernel)
 
@@ -130,14 +131,27 @@ def attn_qkv(p, cfg, x, *, positions=None):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
+def full_attention(q, k, v, cfg, *, causal, window):
+    """Training/prefill attention over the whole sequence (the reference's
+    ``full_attention`` without its TPU knobs, which no config sets)."""
+    if cfg.attention_block_q is not None or cfg.shard_attn_seq:
+        raise NotImplementedError(
+            "attention_block_q / shard_attn_seq are not ported: ROADMAP "
+            "Queue A, item 10 (distributed and dry-run)")
+    return _dispatch_attention(q, k, v, causal=causal, window=window)
+
+
 def _dispatch_attention(q, k, v, *, causal, window, q_offset=0, kv_len=None,
                         take=None):
-    """Route the serving path's two attention shapes to their kernels.
+    """Route each attention shape to its kernel.
 
     Per-row ``q_offset`` [G] with a causal mask is ragged chunked prefill;
-    one query token with ``kv_len`` is batched decode. The device of the
-    tensors decides inside each wrapper: the CUDA kernel on the card, its
-    plain version on the CPU. No other shape is on the serving path."""
+    one query token with ``kv_len`` is batched decode; a scalar
+    ``q_offset`` without ``kv_len`` is full-sequence attention, for every
+    query length (the reference gives one-token queries to its jnp
+    attention; the flash kernel computes the same function). The device
+    of the tensors decides inside each wrapper: the CUDA kernel on the
+    card, its plain version on the CPU."""
     if torch.is_tensor(q_offset) and causal and kv_len is None:
         tk = take if take is not None else torch.full(
             (q.shape[0],), q.shape[1], dtype=torch.int32, device=q.device)
@@ -145,9 +159,13 @@ def _dispatch_attention(q, k, v, *, causal, window, q_offset=0, kv_len=None,
                                      window=window)
     if q.shape[1] == 1 and kv_len is not None:
         return batched_decode_attention(q, k, v, kv_len.int(), window=window)
+    if not torch.is_tensor(q_offset) and kv_len is None:
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=int(q_offset))
     raise NotImplementedError(
-        "full-sequence attention (flash_attention) is not ported yet: "
-        "ROADMAP Queue B, flash_attention")
+        f"attention with q {tuple(q.shape)}, kv_len and a "
+        f"{'per-row' if torch.is_tensor(q_offset) else 'scalar'} q_offset "
+        f"is on no ported path")
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Dense decoder stack in PyTorch (counterpart of the dense subset of
-``repro.models.transformer``).
+"""Decoder stack in PyTorch for the dense and moe families (counterpart
+of that subset of ``repro.models.transformer``).
 
 Parameters keep the reference pytree: per-layer leaves are stacked on a
 leading ``L`` axis (``params["layers"]["attn"]["wq"]["w"]`` is
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 
 def _layer(tree, i: int):
@@ -28,13 +29,14 @@ def _layer(tree, i: int):
 def init_decoder_model(cfg, *, dtype=torch.float32, device: str = "cuda",
                        generator=None):
     """Random parameters at the reference's scales: dense weights
-    N(0, 1/d_in), embeddings N(0, 0.02^2), norms one, biases zero. Draws
-    from ``generator``, a ``torch.Generator`` on ``device``."""
+    N(0, 1/d_in), embeddings N(0, 0.02^2), norms one, biases zero; a moe
+    layer has a float32 router and experts N(0, 1/D) (gate, up) and
+    N(0, 1/F) (down). Draws from ``generator``, a ``torch.Generator`` on
+    ``device``."""
     Lz, D, Vp = cfg.n_layers, cfg.d_model, cfg.padded_vocab()
 
-    def normal(shape, scale):
-        w = torch.randn(shape, generator=generator, device=device,
-                        dtype=dtype)
+    def normal(shape, scale, dt=dtype):
+        w = torch.randn(shape, generator=generator, device=device, dtype=dt)
         return w.mul_(scale)
 
     def dense(d_in, d_out, bias=False):
@@ -53,12 +55,27 @@ def init_decoder_model(cfg, *, dtype=torch.float32, device: str = "cuda",
     if cfg.qk_norm:
         attn["q_norm"] = ones(cfg.resolved_head_dim)
         attn["k_norm"] = ones(cfg.resolved_head_dim)
+
+    def swiglu(d_ff):
+        return {"w_gate": dense(D, d_ff), "w_up": dense(D, d_ff),
+                "w_down": dense(d_ff, D)}
+
+    layers = {"ln1": ones(D), "attn": attn, "ln2": ones(D)}
+    if cfg.family == "moe":
+        E, Fd = cfg.n_experts, cfg.d_ff
+        layers["moe"] = {
+            "router": {"w": normal((Lz, D, E), 1.0 / math.sqrt(D),
+                                   torch.float32)},
+            "w_gate": normal((Lz, E, D, Fd), 1.0 / math.sqrt(D)),
+            "w_up": normal((Lz, E, D, Fd), 1.0 / math.sqrt(D)),
+            "w_down": normal((Lz, E, Fd, D), 1.0 / math.sqrt(Fd))}
+        if cfg.n_shared_experts:
+            layers["moe"]["shared"] = swiglu(cfg.d_ff * cfg.n_shared_experts)
+    else:
+        layers["mlp"] = swiglu(cfg.d_ff)
     p = {
         "embed": {"w": normal((Vp, D), 0.02)},
-        "layers": {"ln1": ones(D), "attn": attn, "ln2": ones(D),
-                   "mlp": {"w_gate": dense(D, cfg.d_ff),
-                           "w_up": dense(D, cfg.d_ff),
-                           "w_down": dense(cfg.d_ff, D)}},
+        "layers": layers,
         "final_norm": {"scale": torch.ones(D, dtype=dtype, device=device)},
     }
     if not cfg.tie_embeddings:
@@ -72,6 +89,48 @@ def _logits(p, cfg, h):
     if cfg.padded_vocab() != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e9
     return logits
+
+
+def _mlp(p_l, cfg, hn):
+    """The layer's MLP: the MoE layer (its aux loss is dropped when
+    serving) or the dense swiglu."""
+    if "moe" in p_l:
+        return MOE.moe_forward(p_l["moe"], cfg, hn)[0]
+    return L.mlp(p_l["mlp"], cfg, hn)
+
+
+def _embed_inputs(p, cfg, batch):
+    """Token embeddings of ``batch["tokens"]`` (the vlm patch prefix is
+    not ported: ROADMAP Queue A, item 8)."""
+    return L.embed(p["embed"], batch["tokens"])
+
+
+def decoder_layer_prefill(p_l, cfg, h, ck, cv, *, window=None):
+    """Full-sequence layer step that also fills this layer's KV cache
+    (ck/cv [B, M, KV, hd], written in place) — the batch-1 legacy
+    prefill's layer, through the flash-attention kernel."""
+    hn = L.rms_norm(p_l["ln1"], h, cfg.norm_eps)
+    q, k, v = L.attn_qkv(p_l["attn"], cfg, hn)
+    out = L.full_attention(q, k, v, cfg, causal=True, window=window)
+    b, s = h.shape[:2]
+    h = h + L.dense(p_l["attn"]["wo"], out.reshape(b, s, cfg.q_dim))
+    KV.write_prefill(ck, cv, KV.expand_kv_for_cache(cfg, k).to(ck.dtype),
+                     KV.expand_kv_for_cache(cfg, v).to(cv.dtype), window)
+    hn = L.rms_norm(p_l["ln2"], h, cfg.norm_eps)
+    return h + _mlp(p_l, cfg, hn)
+
+
+def decoder_prefill(p, cfg, batch, cache):
+    """Fill ``cache`` (in place) from a prompt ``batch["tokens"]`` [B, S];
+    returns (last-token logits [B, 1, V], cache)."""
+    h = _embed_inputs(p, cfg, batch)
+    window = cfg.decode_window()
+    for i in range(cfg.n_layers):
+        h = decoder_layer_prefill(_layer(p["layers"], i), cfg, h,
+                                  cache["k"][i], cache["v"][i],
+                                  window=window)
+    h = L.rms_norm(p["final_norm"], h, cfg.norm_eps)
+    return _logits(p, cfg, h[:, -1:]), cache
 
 
 def decoder_layer_prefill_chunk(p_l, cfg, h, ck, cv, slot_idx, positions,
@@ -134,7 +193,8 @@ def decoder_layer_decode(p_l, cfg, h, ck, cv, pos, *, window=None):
     b = h.shape[0]
     h = h + L.dense(p_l["attn"]["wo"], out.reshape(b, 1, cfg.q_dim))
     hn = L.rms_norm(p_l["ln2"], h, cfg.norm_eps)
-    return h + L.mlp(p_l["mlp"], cfg, hn)
+    # moe: every slot is routed, parked ones included, as in the reference
+    return h + _mlp(p_l, cfg, hn)
 
 
 def decoder_decode(p, cfg, token, pos, cache):

@@ -1,5 +1,5 @@
-"""Serving engine in PyTorch: batched chunked prefill + batched decode for
-dense decoders (counterpart of ``repro.serving.engine``).
+"""Serving engine in PyTorch: batched chunked prefill + batched decode over
+the ported model families (counterpart of ``repro.serving.engine``).
 
 The engine serves fixed-size micro-batches over a KV slot pool:
 ``submit`` enqueues requests, ``step`` admits waiting requests into free
@@ -23,8 +23,12 @@ As in the reference:
   engine's ``torch.Generator``, so they match the reference in
   distribution, not bit for bit.
 
-Only the batched chunked-prefill path is ported: the reference's batch-1
-legacy path for the other families raises ``NotImplementedError``.
+Families outside ``CHUNKED_PREFILL_FAMILIES`` (moe: expert capacity
+couples the rows of a batch) take the reference's legacy path instead:
+each admitted request is prefilled alone into a batch-1 cache through
+``serve_prefill`` (the flash-attention kernel on the card), which is
+then copied into its slot; ``batched_prefill=False`` forces that path
+for any family, and prefix reuse runs only on the batched path.
 
 ``TorchExecutor`` adapts an engine to HybridFlow's Executor protocol
 (synchronous ``run`` and the ``submit``/``poll``/``pump`` surface of the
@@ -171,23 +175,20 @@ class _PrefixIndex:
 
 
 class ServingEngine:
-    """Slot-based continuous batching engine for one dense model."""
+    """Slot-based continuous batching engine for one model."""
 
     def __init__(self, cfg: ModelConfig, params, *, batch_slots: int = 4,
                  max_len: int = 512, dtype=torch.float32, seed: int = 0,
                  prefill_chunk: Optional[int] = None,
+                 batched_prefill: bool = True,
                  prefix_reuse: bool = True,
                  prefix_block: int = KV.PREFIX_BLOCK,
                  device: str = "cuda"):
-        if cfg.family not in M.CHUNKED_PREFILL_FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} needs the batch-1 legacy prefill "
-                f"path, which is not ported yet: ROADMAP Queue A, other "
-                f"families")
         self.cfg = cfg
         self.params = params
         self.slots = batch_slots
         self.max_len = max_len
+        self.dtype = dtype
         self.device = torch.device(device)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.cache = M.init_cache(cfg, batch_slots, max_len, dtype=dtype,
@@ -199,13 +200,17 @@ class ServingEngine:
         self._pos_np = np.full(batch_slots, max_len - 1, np.int32)
         self.prefill_chunk = (None if prefill_chunk is None
                               else max(1, min(prefill_chunk, max_len)))
+        self.batched_prefill = (batched_prefill and
+                                cfg.family in M.CHUNKED_PREFILL_FAMILIES)
         self.active: List[Optional[Request]] = [None] * batch_slots
         self.queue: List[Request] = []
         self._rid = 0
         self._slot_used = [False] * batch_slots
         self._prefilling: Dict[int, _PrefillJob] = {}
         self.prefix_block = max(1, prefix_block)
-        self.prefix_reuse = bool(prefix_reuse)
+        # only the batched path can seed a slot from a cached prefix (the
+        # legacy path rebuilds a batch-1 cache from scratch)
+        self.prefix_reuse = bool(prefix_reuse and self.batched_prefill)
         self._prefix = _PrefixIndex(self.prefix_block)
         self._pending_copy: List[tuple] = []   # (dst_slot, src_slot, n)
         self._pinned: set = set()              # copy sources awaiting launch
@@ -329,6 +334,9 @@ class ServingEngine:
                 self._slot_used[slot] = True
                 self.stats["requests"] += 1
                 ids = req.prompt_ids[-(self.max_len - req.max_new_tokens - 1):]
+                if not self.batched_prefill:
+                    self._prefill_slot_legacy(slot, req, ids)
+                    continue
                 job = _PrefillJob(ids)
                 if self.prefix_reuse:
                     # match BEFORE evicting this slot's own entry: a lease
@@ -424,6 +432,28 @@ class ServingEngine:
                     # the prompt's lines are fully written and stable now
                     self._prefix.register(slot, j.ids)
                 del self._prefilling[slot]
+
+    def _prefill_slot_legacy(self, slot: int, req: Request,
+                             ids: List[int]) -> None:
+        """Prefill one request alone into a batch-1 cache and copy it into
+        ``slot`` — the reference path for families without chunked-slot
+        prefill. Samples the first token at once (one host sync)."""
+        cache1 = M.init_cache(self.cfg, 1, self.max_len, dtype=self.dtype,
+                              device=self.device)
+        tokens = self._tensor(np.asarray([ids], np.int64))
+        temps = self._tensor(np.asarray([req.temperature], np.float32))
+        with torch.no_grad():
+            logits, cache1 = M.serve_prefill(self.params, self.cfg,
+                                             {"tokens": tokens}, cache1)
+            for key in self.cache:
+                self.cache[key][:, slot] = cache1[key][:, 0]
+            first = _device_sample(logits[:, -1], self.gen, temps)
+        self.stats["prefill_backend"] = "legacy-batch1"
+        n = len(ids)
+        self.pos[slot] = n
+        self._pos_np[slot] = n
+        self.stats["prefill_tokens"] += n
+        req.output_ids.append(int(first.item()))
 
     # reprolint: hot
     def _decode_launch(self) -> Optional[_DecodePass]:

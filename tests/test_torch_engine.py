@@ -64,6 +64,66 @@ def test_greedy_fleet_token_identical_with_reuse_on_and_off(pair):
     assert on.stats["prefill_batch_max"] >= 2 and on.stats["peak_active"] >= 2
 
 
+# past the reduced mixtral's 64-token sliding window, so the legacy
+# prefill masks it (and decode, as in the reference, does not)
+LONG = SYSTEM * 2 + "then answer the long question"
+
+
+@pytest.mark.parametrize("slots,max_len", [(3, 96), (2, 128)])
+def test_moe_legacy_engine_token_identical_to_reference(model_zoo, slots,
+                                                         max_len):
+    """The moe cloud prefills each request alone (batch-1 legacy path,
+    the flash wrapper) and decodes all slots together through the MoE
+    layer: greedy outputs and stats equal the JAX engine's."""
+    cfg, params = model_zoo("mixtral-8x7b")
+    tparams = convert_params(jax.tree.map(np.asarray, params), device="cpu")
+    prompts = PROMPTS[:4] + [LONG]
+    outs, stats = [], []
+    for eng in (JaxEngine(cfg, params, batch_slots=slots, max_len=max_len),
+                ServingEngine(cfg, tparams, batch_slots=slots,
+                              max_len=max_len, device="cpu")):
+        reqs = [eng.submit(p, max_new_tokens=5) for p in prompts]
+        eng.run_until_done()
+        assert all(r.done for r in reqs)
+        outs.append([tuple(r.output_ids) for r in reqs])
+        stats.append(eng.stats)
+    assert outs[1] == outs[0]
+    assert {k: v for k, v in stats[1].items() if k not in NOT_COMPARED} == \
+        {k: v for k, v in stats[0].items() if k not in NOT_COMPARED}
+    assert stats[1]["prefill_backend"] == stats[0]["prefill_backend"] == \
+        "legacy-batch1"
+    assert stats[1]["peak_active"] >= 2 and stats[1]["prefix_hits"] == 0
+
+
+def test_dense_legacy_prefill_token_identical_to_batched(pair):
+    """The port's counterpart of the reference's
+    ``test_batched_chunked_prefill_token_identical``: the batch-1 legacy
+    prefill (``batched_prefill=False``), the batched and the chunked
+    paths give the same greedy tokens."""
+    cfg, _, tparams = pair
+    prompts = ["short", "a much longer prompt with many more words in it",
+               "mid sized prompt here", "x", "another ragged length prompt"]
+
+    def run(**kw):
+        eng = ServingEngine(cfg, tparams, batch_slots=3, max_len=96,
+                            device="cpu", **kw)
+        reqs = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        eng.run_until_done()
+        assert all(r.done for r in reqs)
+        return [tuple(r.output_ids) for r in reqs], eng
+
+    ref, eng_legacy = run(batched_prefill=False)
+    out_batched, eng_b = run()
+    out_chunked, eng_c = run(prefill_chunk=4)
+    assert out_batched == ref and out_chunked == ref
+    assert eng_legacy.stats["prefill_backend"] == "legacy-batch1"
+    assert not eng_legacy.prefix_reuse and eng_legacy.stats["prefill_calls"] == 0
+    assert eng_b.stats["prefill_batch_max"] >= 2
+    assert eng_c.stats["prefill_calls"] > eng_b.stats["prefill_calls"]
+    assert (eng_b.stats["prefill_tokens"] == eng_c.stats["prefill_tokens"]
+            == eng_legacy.stats["prefill_tokens"])
+
+
 def test_cancel_and_run_until_follow_the_reference(pair):
     cfg, _, tparams = pair
     eng = ServingEngine(cfg, tparams, batch_slots=2, max_len=64,

@@ -132,6 +132,58 @@ def test_torch_executor_fleet_equals_jax_executor_fleet(model_zoo):
     assert got.stats["cloud_prefix_hits"] == want.stats["cloud_prefix_hits"]
 
 
+def test_swap_pair_fleet_equals_jax_executor_fleet(model_zoo):
+    """The paper's model-pair swap (dense internlm2 edge on the batched
+    chunked path, moe mixtral cloud on the batch-1 legacy path), reduced:
+    a pumped fleet whose routes do not depend on wall-clock time gives
+    the same results, answers included, through both packages."""
+    from repro.core.planner import SyntheticPlanner as RPlanner
+    from repro.serving.engine import JAXExecutor, ServingEngine as JaxEngine
+    from repro.serving.runtime import (ServingConfig as RConfig,
+                                       ServingRuntime as RRuntime)
+    from repro.data.tasks import WorldModel as RWorld
+    from repro_torch.core.planner import SyntheticPlanner
+    from repro_torch.data.tasks import WorldModel
+    from repro_torch.serving import (ServingConfig, ServingEngine,
+                                     ServingRuntime, TorchExecutor)
+
+    ecfg, eparams = model_zoo("internlm2-1.8b")
+    ccfg, cparams = model_zoo("mixtral-8x7b")
+    teparams, tcparams = (
+        convert_params(jax.tree.map(np.asarray, p), device="cpu")
+        for p in (eparams, cparams))
+
+    wm = RWorld()
+    ref_cloud = JaxEngine(ccfg, cparams, batch_slots=4, max_len=128)
+    ref_rt = RRuntime(
+        JAXExecutor(JaxEngine(ecfg, eparams, batch_slots=2, max_len=128,
+                              prefill_chunk=64), wm, cloud=False,
+                    concurrency=1),
+        JAXExecutor(ref_cloud, wm, cloud=True, concurrency=4,
+                    price_out=3.2e-5),
+        RH.RandomPolicy(0.5), planner=RPlanner(),
+        config=RConfig(max_inflight=4, pump=True))
+    want = ref_rt.serve(ref_gen("gpqa", 4))
+
+    wm = WorldModel()
+    edge_engine = ServingEngine(ecfg, teparams, batch_slots=2, max_len=128,
+                                prefill_chunk=64, device="cpu")
+    cloud_engine = ServingEngine(ccfg, tcparams, batch_slots=4, max_len=128,
+                                 device="cpu")
+    rt = ServingRuntime(
+        TorchExecutor(edge_engine, wm, cloud=False, concurrency=1),
+        TorchExecutor(cloud_engine, wm, cloud=True, concurrency=4,
+                      price_out=3.2e-5),
+        TH.RandomPolicy(0.5), planner=SyntheticPlanner(),
+        config=ServingConfig(max_inflight=4, pump=True))
+    got = rt.serve(gen_benchmark("gpqa", 4))
+    _same_results(got.results, want.results, answers=True)
+    assert edge_engine.stats["tokens_out"] > 0
+    assert cloud_engine.stats["prefill_backend"] == "legacy-batch1"
+    assert cloud_engine.stats["tokens_out"] == ref_cloud.stats["tokens_out"]
+    assert got.stats == want.stats
+
+
 @pytest.mark.parametrize("field,value", [("replicas", 2),
                                          ("faults", "submit_fail=0.1"),
                                          ("autoscale", object())])

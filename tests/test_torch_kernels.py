@@ -153,7 +153,8 @@ def test_decode_small_kv_width_and_empty_slots(M):
 
 def test_dispatch_routes_serving_shapes_to_the_wrappers():
     """On CPU tensors the dispatch runs each kernel's plain version (no
-    launch); any other attention shape is not on the serving path."""
+    launch); a scalar offset goes to the flash wrapper, and a shape on no
+    ported path raises."""
     G, S, W, H, KV, hd = 2, 8, 32, 4, 2, 16
     q, k, v, pos0, take = [torch.from_numpy(a) for a in _ragged_inputs(
         G, S, W, H, KV, hd, 3)]
@@ -172,8 +173,14 @@ def test_dispatch_routes_serving_shapes_to_the_wrappers():
     assert BD.batched_decode_attention_plain.calls == bd0 + 1
     assert RP.ragged_prefill_attention.launches == 0
     assert BD.batched_decode_attention.launches == 0
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        TL._dispatch_attention(q, k, v, causal=True, window=None)
+    from repro_torch.kernels import flash_attention as FA
+    fa0 = FA.flash_attention_plain.calls
+    full = TL._dispatch_attention(q, k, v, causal=True, window=None)
+    assert FA.flash_attention_plain.calls == fa0 + 1
+    assert torch.equal(full, FA.flash_attention_plain(q, k, v, causal=True))
+    with pytest.raises(NotImplementedError, match="no ported path"):
+        TL._dispatch_attention(q, k, v, causal=True, window=None,
+                               kv_len=kv_len)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

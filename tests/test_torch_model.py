@@ -107,8 +107,15 @@ def test_prefix_block_hashes_is_the_reference_function():
             RKV.prefix_block_hashes(ids, block)
 
 
-def test_other_families_name_their_roadmap_item():
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "xlstm-350m",
+                                  "zamba2-7b", "whisper-medium"])
+def test_other_families_name_their_roadmap_item(arch):
+    """vlm, ssm, hybrid and audio are not ported yet (moe is)."""
     from repro_torch.configs import get_config
-    cfg = get_config("mixtral-8x7b").reduced()
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config(arch).reduced()
+    assert cfg.family not in TM.PORTED_FAMILIES
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine(cfg, {}, device="cpu")
